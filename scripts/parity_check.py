@@ -90,8 +90,8 @@ def main() -> int:
             "(requires the reference checkout for its headers)")
 
     import jax.numpy as jnp
-    import radix_sorting_tpu as rst
-    from radix_sorting_tpu.utils import keyfile as kf
+    import radix_sorting as rst
+    from radix_sorting.utils import keyfile as kf
 
     keyfile = kf.default_keyfile()
     if not keyfile.exists():

@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from radix_sorting_tpu.parallel import (
+from radix_sorting.parallel import (
     distributed_argsort_balanced_u32,
     distributed_sort_balanced,
     distributed_sort_balanced_u32,
@@ -124,7 +124,7 @@ def test_balanced_generic_dtypes(rng, mesh):
     vals, counts, ovf = distributed_sort_balanced(jnp.asarray(xf), mesh)
     out = gather_sorted(jnp.asarray(vals).view(jnp.uint32), counts, ovf).view(np.float32)
     assert np.array_equal(out, np.sort(xf))
-    # half floats (TPU-native dtypes) ride the same path
+    # half floats ride the same path
     xh = rng.standard_normal(n).astype(np.float16)
     vals, counts, ovf = distributed_sort_balanced(jnp.asarray(xh), mesh)
     out = gather_sorted(jnp.asarray(vals).view(jnp.uint16).astype(jnp.uint32),
@@ -153,7 +153,7 @@ def test_balanced_u64_constant_high_word(rng, mesh):
 
 
 def test_balanced_generic_argsort(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_argsort_balanced
+    from radix_sorting.parallel import distributed_argsort_balanced
     n = 1 << 13
     x = rng.standard_normal(n).astype(np.float32)
     x[:: 7] = x[0]  # ties
@@ -169,7 +169,7 @@ def test_balanced_generic_argsort(rng, mesh):
 
 
 def test_balanced_generic_pairs_pytree(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_sort_pairs_balanced
+    from radix_sorting.parallel import distributed_sort_pairs_balanced
     n = (1 << 12) + 77
     k = rng.integers(-40, 40, size=n, dtype=np.int32)  # heavy ties, signed
     payload = {
@@ -203,7 +203,7 @@ def test_balanced_generic_pairs_pytree(rng, mesh):
 
 
 def test_distributed_unique(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_unique_sorted
+    from radix_sorting.parallel import distributed_unique_sorted
     n = (1 << 14) + 55
     x = rng.integers(0, 300, size=n, dtype=np.uint32)  # heavy duplicates
     vals, counts, ovf = distributed_unique_sorted(jnp.asarray(x), mesh)
@@ -212,7 +212,7 @@ def test_distributed_unique(rng, mesh):
 
 
 def test_distributed_unique_boundary_runs(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_unique_sorted
+    from radix_sorting.parallel import distributed_unique_sorted
     # one value's run spans several shards: must be emitted exactly once
     n = 1 << 13
     x = np.concatenate([
@@ -231,7 +231,7 @@ def test_distributed_unique_boundary_runs(rng, mesh):
 
 
 def test_distributed_unique_floats_and_u64(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_unique_sorted
+    from radix_sorting.parallel import distributed_unique_sorted
     n = 1 << 12
     xf = np.repeat(rng.standard_normal(50).astype(np.float32), n // 50)
     rng.shuffle(xf)
@@ -248,7 +248,7 @@ def test_distributed_unique_floats_and_u64(rng, mesh):
 
 
 def test_distributed_unique_single_device(rng):
-    from radix_sorting_tpu.parallel import distributed_unique_sorted
+    from radix_sorting.parallel import distributed_unique_sorted
     mesh1 = make_sort_mesh(1)
     x = rng.integers(0, 40, size=777, dtype=np.uint32)
     vals, counts, ovf = distributed_unique_sorted(jnp.asarray(x), mesh1)
@@ -283,7 +283,7 @@ def test_balanced_single_device(rng):
 
 
 def test_distributed_select_u32(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_select
+    from radix_sorting.parallel import distributed_select
     n = (1 << 14) + 333
     x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
     ranks = [0, 1, n // 4, n // 2, n - 2, n - 1]
@@ -292,7 +292,7 @@ def test_distributed_select_u32(rng, mesh):
 
 
 def test_distributed_select_skewed_floats(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_select
+    from radix_sorting.parallel import distributed_select
     n = 1 << 13
     x = rng.standard_normal(n).astype(np.float32)
     x[: n // 2] = -1.5  # heavy duplicate mass around a quantile
@@ -307,7 +307,7 @@ def test_distributed_select_skewed_floats(rng, mesh):
 
 
 def test_distributed_select_u64_and_all_equal(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_select
+    from radix_sorting.parallel import distributed_select
     n = 1 << 12
     x64 = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
     got = np.asarray(distributed_select(x64, [7, n // 2], mesh), dtype=np.uint64)
@@ -318,7 +318,7 @@ def test_distributed_select_u64_and_all_equal(rng, mesh):
 
 
 def test_distributed_select_bounds(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_select
+    from radix_sorting.parallel import distributed_select
     x = jnp.arange(100, dtype=jnp.uint32)
     with pytest.raises(ValueError):
         distributed_select(x, [100], mesh)
@@ -376,7 +376,7 @@ def test_balanced_overlap_mode_identical(rng, mesh):
 
 
 def test_balanced_overlap_pairs_and_generic(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_sort_pairs_balanced
+    from radix_sorting.parallel import distributed_sort_pairs_balanced
     n = (1 << 13) + 3
     x = rng.integers(0, 64, size=n, dtype=np.uint32).astype(np.int32)
     payload = {"a": rng.standard_normal(n).astype(np.float32),
@@ -398,7 +398,7 @@ def test_balanced_pairs_bytes_field(rng, mesh):
     # fixed-width byte-string payload (matches api.sort_pairs): numpy S in ->
     # numpy S out; device (n, W) uint8 in -> device matrix out. Output is
     # padded per device, so slice rows by counts like the wide-leaf case.
-    from radix_sorting_tpu.parallel import distributed_sort_pairs_balanced
+    from radix_sorting.parallel import distributed_sort_pairs_balanced
     n = (1 << 12) + 19
     k = rng.integers(0, 50, size=n, dtype=np.uint32)  # heavy ties
     names = np.array([f"n{i:05d}".encode() for i in range(n)], dtype="S6")
@@ -442,7 +442,7 @@ def _np_group_oracle(k, v, reduce):
 
 @pytest.mark.parametrize("reduce", ["sum", "mean", "min", "max", "count"])
 def test_distributed_group_reduce(rng, mesh, reduce):
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n = (1 << 13) + 101
     k = rng.integers(0, 150, size=n, dtype=np.uint32)   # runs span shards
     v = rng.integers(0, 1000, size=n, dtype=np.int32)
@@ -464,7 +464,7 @@ def test_distributed_group_reduce_spanning_runs(rng, mesh):
     # one giant group spanning ALL shards plus a tail of small groups: the
     # carry must chain through every single-run shard and the run must be
     # emitted exactly once, with the exact global sum
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n = 1 << 13
     k = np.concatenate([np.zeros(n - 64, np.uint32),
                         rng.integers(1, 9, size=64, dtype=np.uint32)])
@@ -488,7 +488,7 @@ def test_distributed_group_reduce_spanning_runs(rng, mesh):
 
 
 def test_distributed_group_reduce_dtypes(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n = 4_096
     # u64 keys (two planes), f32 values, min/max under the KDF order
     k = rng.integers(0, 40, size=n, dtype=np.uint64) << np.uint64(40)
@@ -510,7 +510,7 @@ def test_distributed_group_reduce_dtypes(rng, mesh):
 
 
 def test_distributed_group_reduce_small_and_errors(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     # n < D: trailing shards are empty, links must not fire across them
     k = np.asarray([5, 5, 1], np.uint32)
     v = np.asarray([10, 20, 7], np.int32)
@@ -534,7 +534,7 @@ def test_distributed_group_reduce_small_and_errors(rng, mesh):
 def test_distributed_group_reduce_dense_tier(rng, mesh, reduce):
     # groups promise: NO distributed sort — per-shard weighted histograms
     # + one psum; output contract identical to the sort-backed route
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n, G = (1 << 13) + 55, 1 << 9
     k = rng.integers(0, G, size=n, dtype=np.uint32)
     v = rng.integers(-(1 << 20), 1 << 20, size=n, dtype=np.int32)
@@ -556,7 +556,7 @@ def test_distributed_group_reduce_dense_tier(rng, mesh, reduce):
 def test_distributed_group_reduce_dense_f32(rng, mesh):
     # FLOAT dense tier (round 5): per-shard fused count+bf16x2-sum
     # histograms + one f32 psum — no distributed sort
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n, G = (1 << 13) + 55, 1 << 9
     k = rng.integers(0, G, size=n, dtype=np.uint32)
     v = (rng.standard_normal(n) * 10).astype(np.float32)
@@ -576,7 +576,7 @@ def test_distributed_group_reduce_dense_f32(rng, mesh):
 
 
 def test_distributed_group_reduce_dense_narrow_and_validate(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_group_reduce
+    from radix_sorting.parallel import distributed_group_reduce
     n, G = 3_333, 37  # non-power-of-two G, n not divisible by D
     k = rng.integers(0, G, size=n, dtype=np.int16)
     v = rng.integers(-128, 127, size=n, dtype=np.int8)  # signed-bias path
@@ -606,7 +606,7 @@ def test_distributed_group_reduce_dense_narrow_and_validate(rng, mesh):
 @pytest.mark.parametrize("method",
                          ("linear", "lower", "higher", "nearest", "midpoint"))
 def test_distributed_quantile_vs_numpy(rng, mesh, method):
-    from radix_sorting_tpu.parallel import distributed_quantile
+    from radix_sorting.parallel import distributed_quantile
     n = (1 << 14) + 77
     x = rng.standard_normal(n).astype(np.float32)
     qs = [0.0, 0.05, 0.25, 0.5, 0.9, 1.0]
@@ -618,8 +618,8 @@ def test_distributed_quantile_vs_numpy(rng, mesh, method):
 
 def test_distributed_quantile_matches_single_chip(rng, mesh):
     # the distributed form must agree with stats.quantile exactly
-    from radix_sorting_tpu.parallel import distributed_quantile
-    from radix_sorting_tpu.stats import quantile
+    from radix_sorting.parallel import distributed_quantile
+    from radix_sorting.stats import quantile
     x = rng.integers(0, 1 << 20, size=9_999, dtype=np.uint32)
     qs = [0.13, 0.5, 0.77]
     got = np.asarray(distributed_quantile(jnp.asarray(x), qs, mesh))
@@ -628,14 +628,14 @@ def test_distributed_quantile_matches_single_chip(rng, mesh):
 
 
 def test_distributed_median_u64_host_path(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_median
+    from radix_sorting.parallel import distributed_median
     x = rng.integers(0, 1 << 62, size=8_192, dtype=np.int64)
     got = distributed_median(x, mesh)
     assert np.isclose(float(got), np.median(x).astype(np.float64))
 
 
 def test_distributed_quantile_scalar_and_errors(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_quantile
+    from radix_sorting.parallel import distributed_quantile
     x = rng.standard_normal(1_024).astype(np.float32)
     m = distributed_quantile(jnp.asarray(x), 0.5, mesh)
     assert np.ndim(m) == 0
@@ -648,7 +648,7 @@ def test_distributed_quantile_scalar_and_errors(rng, mesh):
 
 
 def test_distributed_bincount(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_bincount
+    from radix_sorting.parallel import distributed_bincount
     n = (1 << 13) + 55  # ragged: exercises the sentinel padding
     x = rng.integers(0, 777, size=n, dtype=np.uint32)
     got = np.asarray(distributed_bincount(jnp.asarray(x), mesh, 777))
@@ -665,8 +665,8 @@ def test_distributed_bincount(rng, mesh):
 # ---------------------------------------------------------- distributed top-k
 
 def test_distributed_top_k_vs_local(rng, mesh):
-    from radix_sorting_tpu.extras import top_k
-    from radix_sorting_tpu.parallel import distributed_top_k
+    from radix_sorting.extras import top_k
+    from radix_sorting.parallel import distributed_top_k
     x = rng.integers(0, 1 << 32, size=1 << 15, dtype=np.uint32)
     for largest in (True, False):
         vals, idx = distributed_top_k(jnp.asarray(x), 100, mesh,
@@ -677,8 +677,8 @@ def test_distributed_top_k_vs_local(rng, mesh):
 
 
 def test_distributed_top_k_ties_and_ragged(rng, mesh):
-    from radix_sorting_tpu.extras import top_k
-    from radix_sorting_tpu.parallel import distributed_top_k
+    from radix_sorting.extras import top_k
+    from radix_sorting.parallel import distributed_top_k
     # heavy ties: tie -> lower global index, exactly like extras.top_k;
     # n not divisible by 8 exercises the sentinel padding
     x = rng.integers(0, 7, size=(1 << 14) + 13, dtype=np.uint32)
@@ -691,8 +691,8 @@ def test_distributed_top_k_ties_and_ragged(rng, mesh):
 
 
 def test_distributed_top_k_floats_and_u64(rng, mesh):
-    from radix_sorting_tpu.extras import top_k
-    from radix_sorting_tpu.parallel import distributed_top_k
+    from radix_sorting.extras import top_k
+    from radix_sorting.parallel import distributed_top_k
     f = rng.standard_normal(1 << 14).astype(np.float32)
     f[:16] = [np.nan, np.inf, -np.inf, -0.0] * 4
     vals, idx = distributed_top_k(jnp.asarray(f), 50, mesh)
@@ -708,7 +708,7 @@ def test_distributed_top_k_floats_and_u64(rng, mesh):
 
 
 def test_distributed_top_k_errors(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_top_k
+    from radix_sorting.parallel import distributed_top_k
     x = jnp.asarray(rng.integers(0, 100, size=1 << 10, dtype=np.uint32))
     with pytest.raises(ValueError, match="k must be"):
         distributed_top_k(x, 0, mesh)

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu.extras import segmented_argsort, segmented_sort, top_k
+import radix_sorting as rst
+from radix_sorting.extras import segmented_argsort, segmented_sort, top_k
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.int16, np.float32])
@@ -168,7 +168,7 @@ def test_top_k_bounds(rng):
 
 
 def test_merge_sorted(rng):
-    from radix_sorting_tpu.extras import merge_sorted
+    from radix_sorting.extras import merge_sorted
     a = np.sort(rng.integers(0, 1000, size=700, dtype=np.uint32))
     b = np.sort(rng.integers(0, 1000, size=1300, dtype=np.uint32))
     out = np.asarray(merge_sorted(jnp.asarray(a), jnp.asarray(b)))
@@ -178,8 +178,8 @@ def test_merge_sorted(rng):
 
 
 def test_merge_sorted_floats_descending(rng):
-    from radix_sorting_tpu.extras import merge_sorted
-    import radix_sorting_tpu as rst
+    from radix_sorting.extras import merge_sorted
+    import radix_sorting as rst
     cfg = rst.SortConfig(descending=True)
     a = np.sort(rng.standard_normal(500).astype(np.float32))[::-1].copy()
     b = np.sort(rng.standard_normal(400).astype(np.float32))[::-1].copy()
@@ -193,7 +193,7 @@ def test_merge_sorted_floats_descending(rng):
 
 def test_sort_under_jit_and_vmap(rng):
     import jax
-    import radix_sorting_tpu as rst
+    import radix_sorting as rst
     x = rng.integers(0, 1 << 32, size=(6, 500), dtype=np.uint32)
     cfg = rst.SortConfig(detect_presorted=False)
     out = np.asarray(jax.vmap(lambda r: rst.sort(r, config=cfg))(jnp.asarray(x)))
@@ -204,7 +204,7 @@ def test_sort_under_jit_and_vmap(rng):
 
 def test_argsort_under_vmap(rng):
     import jax
-    import radix_sorting_tpu as rst
+    import radix_sorting as rst
     x = rng.integers(0, 50, size=(4, 300), dtype=np.int32)
     cfg = rst.SortConfig(detect_presorted=False)
     perm = np.asarray(jax.vmap(lambda r: rst.argsort(r, config=cfg))(jnp.asarray(x)))
@@ -212,8 +212,8 @@ def test_argsort_under_vmap(rng):
 
 
 def test_nth_element(rng):
-    from radix_sorting_tpu.extras import nth_element
-    import radix_sorting_tpu as rst
+    from radix_sorting.extras import nth_element
+    import radix_sorting as rst
     n = 10_000
     x = rng.standard_normal(n).astype(np.float32)
     got = np.asarray(nth_element(jnp.asarray(x), [0, n // 2, n - 1]))
@@ -230,7 +230,7 @@ def test_nth_element(rng):
 
 def test_merge_sorted_u64_numpy(rng):
     # regression: jnp.asarray would silently truncate 64-bit numpy inputs
-    from radix_sorting_tpu.extras import merge_sorted
+    from radix_sorting.extras import merge_sorted
     a = np.array([1, (1 << 40) + 5], np.uint64)
     b = np.array([3, (1 << 40) + 1], np.uint64)
     out = np.asarray(merge_sorted(a, b), dtype=np.uint64)
@@ -239,7 +239,7 @@ def test_merge_sorted_u64_numpy(rng):
 
 def test_index_width_guards(rng):
     # every index-plane entry point rejects a too-narrow index dtype
-    from radix_sorting_tpu.extras import segmented_argsort, top_k
+    from radix_sorting.extras import segmented_argsort, top_k
     x = jnp.zeros((1 << 17,), jnp.uint32)
     with pytest.raises(ValueError, match="cannot index"):
         rst.argsort(x, index_dtype=jnp.uint16)
@@ -252,8 +252,7 @@ def test_index_width_guards(rng):
 
 
 def test_batched_single_row_fast_path(rng):
-    # degenerate 1-batch inputs take the 1-D lowering (6x faster on TPU,
-    # measured in scripts/exp_gather_round2.py); results must be identical
+    # degenerate 1-batch inputs take the 1-D sort; results must be identical
     x = rng.integers(0, 1 << 32, size=(1, 4096), dtype=np.uint32)
     assert np.array_equal(np.asarray(rst.sort_batched(jnp.asarray(x))),
                           np.sort(x, axis=1))

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
+import radix_sorting as rst
 
 WIDTHS = [1, 3, 4, 5, 8, 11, 16]
 
@@ -127,7 +127,7 @@ def test_width_bounds():
     wide = np.zeros(4, dtype="S260")
     with pytest.raises(ValueError, match="width"):
         rst.sort(wide)
-    from radix_sorting_tpu.ops.kdf import _check_bytes_width
+    from radix_sorting.ops.kdf import _check_bytes_width
     with pytest.raises(ValueError, match="width"):
         _check_bytes_width(0)
 
@@ -147,7 +147,7 @@ def test_dynamic_probe_short_bytes(rng):
 
 
 def test_kdf_bytes_roundtrip(rng):
-    from radix_sorting_tpu.ops import kdf
+    from radix_sorting.ops import kdf
     for W in (1, 4, 7, 8, 13):
         x = _random_bytes(rng, 257, W)
         for desc in (False, True):
@@ -161,7 +161,7 @@ def test_kdf_bytes_roundtrip(rng):
 
 def test_kdf_bytes_order_preserving(rng):
     # encoded plane tuples must order exactly as numpy orders the strings
-    from radix_sorting_tpu.ops import kdf
+    from radix_sorting.ops import kdf
     x = _random_bytes(rng, 400, 6, alphabet=5)
     words = [np.asarray(w) for w in kdf.encode_bytes_np(x)]
     tuples = list(zip(*[w.tolist() for w in words]))

@@ -1,7 +1,7 @@
 """Sanitizer-analog pass: checkify NaN/OOB/div checks over the hot paths.
 
 The reference offers an opt-in valgrind wrapper — ``MEMCHECK=1 make test``
-(`/root/reference/Makefile:14-16`) — as its memory-safety net. The TPU-native
+(`Makefile:14-16` of the reference) — as its memory-safety net. The JAX
 equivalent (SURVEY §5 race-detection row): run the engines at small sizes
 under `jax.experimental.checkify` with the full error set, so every traced
 gather/scatter index is bounds-checked and every float op is NaN/Inf-checked.
@@ -17,24 +17,13 @@ Notes:
 """
 
 import numpy as np
-import pytest
 import jax
 import jax.numpy as jnp
 from jax.experimental import checkify
 
-import radix_sorting_tpu as rst
+import radix_sorting as rst
 
 CHECKS = checkify.index_checks | checkify.float_checks | checkify.div_checks
-
-# checkify cannot transform Mosaic `pallas_call` programs (the instrumented
-# grid while_loop's carry types mismatch), so the cases that can route into
-# the Pallas counting kernels are CPU-only — which is where this sanitizer
-# pass runs in CI anyway (the MEMCHECK analog). The same paths are covered
-# uninstrumented on the TPU backend by their own suites.
-skip_pallas_paths = pytest.mark.skipif(
-    jax.default_backend() != "cpu",
-    reason="checkify does not compose with Mosaic pallas_call")
-
 
 def _run_checked(fn, *args):
     """checkify + jit the callable, assert no error fired, return the value."""
@@ -43,7 +32,6 @@ def _run_checked(fn, *args):
     return out
 
 
-@skip_pallas_paths
 def test_checkify_sort_all_dtypes(rng):
     n = 2048
     for dtype in (np.uint8, np.uint16, np.uint32, np.int32, np.float32):
@@ -75,7 +63,6 @@ def test_checkify_argsort_and_pairs(rng):
     assert np.array_equal(np.asarray(pl), payload[order])
 
 
-@skip_pallas_paths
 def test_checkify_counting_and_masked(rng):
     n = 4096
     x = rng.integers(0, 256, size=n).astype(np.uint8)
@@ -90,7 +77,7 @@ def test_checkify_counting_and_masked(rng):
 def test_checkify_lsd_engine(rng):
     # the scatter-form engine is the gather-heaviest path: index_checks
     # covers its per-pass permutation arithmetic
-    from radix_sorting_tpu.config import SortConfig, Strategy
+    from radix_sorting.config import SortConfig, Strategy
     n = 1024
     x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
     cfg = SortConfig(strategy=Strategy.LSD)
@@ -100,7 +87,7 @@ def test_checkify_lsd_engine(rng):
 
 
 def test_checkify_extras(rng):
-    from radix_sorting_tpu import extras
+    from radix_sorting import extras
     n = 512
     x = rng.integers(0, 32, size=n, dtype=np.uint32)
     vals, count = _run_checked(lambda a: extras.unique_sorted(a), jnp.asarray(x))
@@ -115,7 +102,7 @@ def test_checkify_batched_and_segmented(rng):
     # sharded outputs, so the distributed paths are exercised by their own
     # suites; like the reference's MEMCHECK, this pass covers the
     # single-device engines.)
-    from radix_sorting_tpu import extras
+    from radix_sorting import extras
     x = rng.integers(0, 1 << 32, size=(16, 256), dtype=np.uint32)
     out = np.asarray(_run_checked(lambda a: rst.sort_batched(a, axis=1),
                                   jnp.asarray(x)))

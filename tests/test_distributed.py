@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from radix_sorting_tpu.parallel import (
+from radix_sorting.parallel import (
     distributed_argsort_u32,
     distributed_sort_pairs_u32,
     distributed_sort_u32,
@@ -164,7 +164,7 @@ def test_distributed_sort_pairs(rng, mesh):
 
 
 def test_distributed_sort_rejects_stray_kwargs(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_sort
+    from radix_sorting.parallel import distributed_sort
     x = jnp.asarray(rng.integers(0, 1 << 32, size=1 << 10, dtype=np.uint32))
     # shuffle-only knobs must not be silently dropped by the balanced default
     with pytest.raises(TypeError, match="does not accept"):
@@ -177,7 +177,7 @@ def test_distributed_sort_rejects_stray_kwargs(rng, mesh):
 
 @pytest.mark.parametrize("method", ["balanced", "shuffle"])
 def test_distributed_sort_generic_dtypes(rng, mesh, method):
-    from radix_sorting_tpu.parallel import distributed_sort
+    from radix_sorting.parallel import distributed_sort
     n = 1 << 14
     # float32 (KDF order incl. negatives)
     xf = rng.standard_normal(n).astype(np.float32)
@@ -217,7 +217,7 @@ def test_device_of_bucket_exact_at_large_n(rng):
     # `_device_of_bucket` must stay exact for totals approaching 2^31
     # (int32 threshold arithmetic; a float32 formulation loses integer
     # precision above ~2^24 and can shift bucket->device boundaries).
-    from radix_sorting_tpu.parallel.shuffle import _device_of_bucket
+    from radix_sorting.parallel.shuffle import _device_of_bucket
 
     B = 4096
     for D in (2, 8, 64):
@@ -237,7 +237,7 @@ def test_device_of_bucket_exact_at_large_n(rng):
 
 def test_distributed_pairs_generic_shuffle(rng, mesh):
     # shuffle-path record sort with a pytree payload + non-u32 keys
-    from radix_sorting_tpu.parallel import distributed_sort_pairs
+    from radix_sorting.parallel import distributed_sort_pairs
     n = (1 << 14) + 77
     x = rng.standard_normal(n).astype(np.float32)
     payload = {"w": rng.integers(0, 1 << 64, size=n, dtype=np.uint64),
@@ -261,7 +261,7 @@ def test_distributed_pairs_generic_shuffle(rng, mesh):
 
 
 def test_distributed_argsort_generic_both_methods(rng, mesh):
-    from radix_sorting_tpu.parallel import distributed_argsort
+    from radix_sorting.parallel import distributed_argsort
     n = 1 << 14
     x = rng.integers(-100, 100, size=n, dtype=np.int64)  # ties + 2-plane keys
     expect = np.argsort(x, kind="stable").astype(np.uint32)
@@ -278,7 +278,7 @@ def test_distributed_argsort_generic_both_methods(rng, mesh):
 
 def test_distributed_pairs_shuffle_skew_overflow_detected(rng, mesh):
     # the shuffle path must still DETECT capacity overflow with payloads
-    from radix_sorting_tpu.parallel import distributed_sort_pairs
+    from radix_sorting.parallel import distributed_sort_pairs
     n = 1 << 14
     x = np.full(n, 3, np.uint32)
     x[: n // 8] = rng.integers(0, 1 << 32, size=n // 8, dtype=np.uint32)
@@ -317,7 +317,7 @@ def test_distributed_ragged_all_sentinel_keys(rng, mesh):
 
 
 def test_global_histogram_pass_index_validated(rng, mesh):
-    from radix_sorting_tpu.parallel import global_digit_histogram
+    from radix_sorting.parallel import global_digit_histogram
     x = jnp.asarray(rng.integers(0, 1 << 32, size=1 << 12, dtype=np.uint32))
     with pytest.raises(ValueError, match="pass_index"):
         global_digit_histogram(x, mesh, pass_index=4)
@@ -327,8 +327,8 @@ def test_global_histogram_pass_index_validated(rng, mesh):
 def test_distributed_sort_ml_dtypes(rng, mesh, dtype):
     # the "any dtype" claim must cover ml_dtypes keys (encode-based
     # genericity; numpy-kind dispatch would misroute them — round-3 fix)
-    from radix_sorting_tpu.parallel import distributed_sort
-    from radix_sorting_tpu.ops import kdf
+    from radix_sorting.parallel import distributed_sort
+    from radix_sorting.ops import kdf
     bits = 16 if dtype == "bfloat16" else 8
     raw = rng.integers(0, 1 << bits, size=20_000,
                        dtype=np.dtype(f"uint{bits}"))
@@ -338,3 +338,22 @@ def test_distributed_sort_ml_dtypes(rng, mesh, dtype):
     k = np.asarray(kdf.encode(x)[0])
     kr = np.asarray(kdf.encode(jnp.asarray(res))[0])
     assert np.array_equal(np.sort(k), kr)
+
+
+@pytest.mark.parametrize("call", ["sort_u32", "argsort_u32", "balanced_u32",
+                                  "sort_method_kw"])
+def test_exchange_option_removed(mesh, call):
+    # the exchange is lax.all_to_all (NCCL on GPUs); the former remote-DMA
+    # backend and its `exchange=` option are gone, so passing it is an error
+    from radix_sorting.parallel import (distributed_sort,
+                                        distributed_sort_balanced_u32)
+    x = jnp.arange(1024, dtype=jnp.uint32)
+    fn = {"sort_u32": lambda: distributed_sort_u32(x, mesh, exchange="xla"),
+          "argsort_u32": lambda: distributed_argsort_u32(x, mesh,
+                                                         exchange="xla"),
+          "balanced_u32": lambda: distributed_sort_balanced_u32(
+              x, mesh, exchange="xla"),
+          "sort_method_kw": lambda: distributed_sort(x, mesh, method="shuffle",
+                                                     exchange="xla")}[call]
+    with pytest.raises(TypeError):
+        fn()

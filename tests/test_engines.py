@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu.ops import counting_engine, histogram, hw_engine, lsd_engine, probes, scan
-from radix_sorting_tpu.ops.bitmap import bitmap_unique_sort
+import radix_sorting as rst
+from radix_sorting.ops import counting_engine, histogram, hw_engine, lsd_engine, probes, scan
+from radix_sorting.ops.bitmap import bitmap_unique_sort
 
 
 # ---------------------------------------------------------------- probes
@@ -50,7 +50,7 @@ def test_digit_histogram(rng):
     x = rng.integers(0, 1 << 32, size=100_000, dtype=np.uint32)
     for p in range(4):
         d = histogram.extract_digit((jnp.asarray(x),), p, 8)
-        h = histogram.digit_histogram(d, 256, block=1 << 14)
+        h = histogram.digit_histogram(d, 256)
         expect = np.bincount((x >> (8 * p)) & 0xFF, minlength=256)
         assert np.array_equal(np.asarray(h), expect)
 
@@ -78,7 +78,7 @@ def test_scatter_bases(rng):
 
 def test_counting_sort_compact(rng):
     c = jnp.asarray(rng.integers(0, 256, 70_000, dtype=np.uint32))
-    out = counting_engine.counting_sort_compact(c, 256, block=1 << 14)
+    out = counting_engine.sort_word_counting(c, 0xFF)
     assert np.array_equal(np.asarray(out), np.sort(np.asarray(c)))
 
 
@@ -152,7 +152,7 @@ def test_lsd_engine_checkified_no_oob(rng):
     # write out of bounds, including on ragged (padded) inputs.
     import jax
     from jax.experimental import checkify
-    from radix_sorting_tpu.ops import lsd_engine
+    from radix_sorting.ops import lsd_engine
 
     x = jnp.asarray(rng.integers(0, 1 << 32, size=10_000 + 137, dtype=np.uint32))
 

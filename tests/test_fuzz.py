@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
+import radix_sorting as rst
 
 
 _DTYPES = [np.uint8, np.uint16, np.uint32, np.int8, np.int16, np.int32,

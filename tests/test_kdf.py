@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from radix_sorting_tpu.ops import kdf
+from radix_sorting.ops import kdf
 
 
 def _np_words(words):
@@ -49,16 +49,10 @@ def test_roundtrip(rng, dtype):
     x = _random_values(rng, dtype)
     words = kdf.encode(x)
     back = kdf.decode(words, x.dtype)
-    # Expected bits = what one device bitcast sees. On CPU this is the
-    # identity; the TPU backend canonicalizes float16 NaN payloads to qNaN in
-    # ANY f16 bitcast/compute (measured; bf16 unaffected), and the KDF is
-    # bit-faithful to what the device can represent — so the oracle must pass
-    # through the same canonicalization.
-    if jnp.dtype(x.dtype).kind not in ("u", "i"):
-        expect = np.asarray(
-            lax.bitcast_convert_type(x, jnp.dtype(f"uint{x.dtype.itemsize * 8}")))
-    else:
-        expect = np.asarray(x).view(np.dtype(f"u{x.dtype.itemsize}"))
+    # expected bits: the input's own, NaN payloads included (the KDF is
+    # bit-faithful)
+    expect = np.asarray(
+        lax.bitcast_convert_type(x, jnp.dtype(f"uint{x.dtype.itemsize * 8}")))
     assert np.array_equal(
         np.asarray(back).view(np.dtype(f"u{x.dtype.itemsize}")), expect
     )
@@ -118,7 +112,7 @@ def test_descending_is_complement_order(rng, dtype):
 
 def test_u64_pair_words(rng):
     x = rng.integers(0, 1 << 64, size=2048, dtype=np.uint64)
-    from radix_sorting_tpu.api import _as_words
+    from radix_sorting.api import _as_words
     words, dt = _as_words(x, False)
     assert len(words) == 2 and dt == np.dtype("uint64")
     k = _lex(words)
@@ -134,7 +128,7 @@ def test_64bit_signed_float_monotone(rng, dtype):
         x = x[~np.isnan(x)]  # NaN ordering vs numpy sort differs; tested via k-order
     else:
         x = rng.integers(np.iinfo(d).min, np.iinfo(d).max, size=4096, dtype=d)
-    from radix_sorting_tpu.api import _as_words
+    from radix_sorting.api import _as_words
     xs = np.sort(x)
     words, _ = _as_words(xs, False)
     k = _lex(words)
@@ -142,7 +136,7 @@ def test_64bit_signed_float_monotone(rng, dtype):
 
 
 def test_kdf_metadata_helpers():
-    from radix_sorting_tpu.ops import kdf
+    from radix_sorting.ops import kdf
     assert kdf.num_words("uint64") == 2 and kdf.num_words("float32") == 1
     assert kdf.key_bits("int16") == 16 and kdf.key_bits("float64") == 64
     with pytest.raises(TypeError):
@@ -150,7 +144,7 @@ def test_kdf_metadata_helpers():
 
 
 def test_split_join64_np_roundtrip(rng):
-    from radix_sorting_tpu.ops import kdf
+    from radix_sorting.ops import kdf
     for dt in (np.uint64, np.int64, np.float64):
         x = rng.integers(0, 1 << 64, size=257, dtype=np.uint64).view(dt)
         hi, lo = kdf.split64_np(x)
@@ -159,7 +153,7 @@ def test_split_join64_np_roundtrip(rng):
 
 
 def test_word_lt_lexicographic(rng):
-    from radix_sorting_tpu.ops.probes import word_lt
+    from radix_sorting.ops.probes import word_lt
     a = (np.array([1, 2, 2, 2], np.uint32), np.array([9, 1, 5, 5], np.uint32))
     b = (np.array([2, 2, 2, 2], np.uint32), np.array([0, 2, 5, 4], np.uint32))
     got = np.asarray(word_lt(tuple(map(jnp.asarray, a)), tuple(map(jnp.asarray, b))))

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu.models import (
+import radix_sorting as rst
+from radix_sorting.models import (
     BitmapSorter16,
     CountingSorter8,
     GenericRadixSorter,
@@ -109,7 +109,7 @@ def test_generic_sorter_descending_config(rng):
 
 
 def test_keyfile_roundtrip(tmp_path, rng):
-    from radix_sorting_tpu.utils import keyfile
+    from radix_sorting.utils import keyfile
     keys = keyfile.generate_keys(1000, seed=7)
     p = tmp_path / "keys.dat"
     keyfile.write_keyfile(p, keys)
@@ -125,7 +125,7 @@ def test_keyfile_grows_to_request(tmp_path, monkeypatch):
     # 40M u64 = 80M words; 160M wide-tier runs), and growth must keep the
     # existing prefix bit-identical (PCG64 draws are prefix-stable), so
     # parity/bench artifacts derived from the first 40M words are unchanged.
-    from radix_sorting_tpu.utils import keyfile
+    from radix_sorting.utils import keyfile
     monkeypatch.setattr(keyfile, "DEFAULT_COUNT", 1_000)
     p = tmp_path / "grow.dat"
     small = keyfile.load_or_create(500, path=p)
@@ -136,7 +136,7 @@ def test_keyfile_grows_to_request(tmp_path, monkeypatch):
 
 
 def test_steady_state_ms_smoke():
-    from radix_sorting_tpu.utils import timing
+    from radix_sorting.utils import timing
     x = jnp.arange(4096, dtype=jnp.uint32)
     ms = timing.steady_state_ms(lambda a: rst.sort(a), x, reps=2)
     assert ms > 0
@@ -147,7 +147,7 @@ def test_steady_state_ms_smoke():
 def test_steady_chain_ms_smoke(rng):
     # the canonical scramble-chain harness: plain, aux-operand, and u16 forms
     from jax import lax
-    from radix_sorting_tpu.utils import timing
+    from radix_sorting.utils import timing
     x = jnp.asarray(rng.integers(0, 1 << 32, 4096, dtype=np.uint32))
     assert timing.steady_chain_ms(lambda c: lax.sort(c), x, reps=2) > 0
     hi = jnp.zeros_like(x)
@@ -159,8 +159,8 @@ def test_steady_chain_ms_smoke(rng):
 
 
 def test_scan_helpers(rng):
-    from radix_sorting_tpu.ops.scan import exclusive_scan, scatter_bases
-    from radix_sorting_tpu.ops.histogram import chunked_digit_histogram
+    from radix_sorting.ops.scan import exclusive_scan, scatter_bases
+    from radix_sorting.ops.histogram import chunked_digit_histogram
     h = jnp.asarray(rng.integers(0, 10, size=(4, 8)).astype(np.int32))
     ex = np.asarray(exclusive_scan(h, axis=-1))
     assert np.array_equal(ex, np.cumsum(np.asarray(h), -1) - np.asarray(h))
@@ -182,7 +182,7 @@ def test_scan_helpers(rng):
 def test_trace_smoke(tmp_path):
     # the tracing subsystem (SURVEY §5 row 1): one traced block produces a
     # profile artifact
-    from radix_sorting_tpu.utils import timing
+    from radix_sorting.utils import timing
     with timing.trace(str(tmp_path)) as logdir:
         np.asarray(rst.sort(jnp.arange(1024, dtype=jnp.uint32)))
     import pathlib

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu.runtime import native
+import radix_sorting as rst
+from radix_sorting.runtime import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no native toolchain")

@@ -10,13 +10,13 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu.models import (
+import radix_sorting as rst
+from radix_sorting.models import (
     RankSorter,
     RecordCountingSorter,
     StableCountingSorter8,
 )
-from radix_sorting_tpu.utils import verify
+from radix_sorting.utils import verify
 
 # the `radix_tests.cpp:20-29` fixture: duplicate key 45 labeled 1st/2nd/3rd
 KEYS = np.array([255, 45, 0, 45, 255, 45, 1, 255], dtype=np.uint8)
@@ -231,8 +231,8 @@ def test_counting_strategy_rejected_for_rank_and_pairs(rng):
 
 # ---------------------------------------------------------------------------
 # fixed-width byte-string payload fields (the reference record demo carries a
-# short char name per key — `README.md:252`; TPU-first: packed u32 operand
-# planes instead of pointer gathers)
+# short char name per key — `README.md:252`; packed u32 operand planes
+# instead of pointer gathers)
 
 
 def test_pairs_bytes_payload_numpy_strings(rng):

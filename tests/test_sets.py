@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import radix_sorting_tpu as rst
-from radix_sorting_tpu import SortConfig
-from radix_sorting_tpu.sets import (intersect1d, isin, setdiff1d, setxor1d,
+import radix_sorting as rst
+from radix_sorting import SortConfig
+from radix_sorting.sets import (intersect1d, isin, setdiff1d, setxor1d,
                                     union1d, unique)
 
 
@@ -384,7 +384,7 @@ def test_isin_empty(rng):
 
 
 def test_isin_invert_and_in1d(rng):
-    from radix_sorting_tpu import in1d
+    from radix_sorting import in1d
     el = rng.integers(0, 1000, size=8_000, dtype=np.uint32)
     te = rng.integers(500, 1500, size=4_000, dtype=np.uint32)
     want = np.isin(el, te, invert=True)
@@ -422,7 +422,7 @@ def _np_group(keys, values, reduce):
 
 @pytest.mark.parametrize("reduce", ["sum", "mean", "min", "max"])
 def test_group_reduce_u32_keys(reduce, rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 200, size=20_000, dtype=np.uint32)
     v = rng.integers(0, 1000, size=20_000, dtype=np.int32)
     uk, out, ng = group_reduce(jnp.asarray(k), jnp.asarray(v), reduce=reduce)
@@ -438,7 +438,7 @@ def test_group_reduce_u32_keys(reduce, rng):
 
 
 def test_group_reduce_float_values(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 50, size=5_000, dtype=np.int16)
     v = rng.standard_normal(5_000).astype(np.float32)
     for reduce in ("min", "max"):
@@ -452,7 +452,7 @@ def test_group_reduce_float_values(rng):
 
 
 def test_group_reduce_f16_accumulates_f32(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 4, size=8_192, dtype=np.uint8)
     v = jnp.ones((8_192,), jnp.float16)  # f16 cumsum would saturate at 2048
     uk, out, ng = group_reduce(jnp.asarray(k), v, reduce="sum")
@@ -462,7 +462,7 @@ def test_group_reduce_f16_accumulates_f32(rng):
 
 
 def test_group_reduce_u64_values_no_x64(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 30, size=3_000, dtype=np.uint32)
     v = rng.integers(0, 1 << 63, size=3_000, dtype=np.uint64)
     uk, out, ng = group_reduce(jnp.asarray(k), v, reduce="max")
@@ -475,7 +475,7 @@ def test_group_reduce_u64_values_no_x64(rng):
 
 
 def test_group_reduce_jit_and_edges(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 20, size=1_000, dtype=np.uint32)
     v = rng.integers(0, 100, size=1_000, dtype=np.uint32)
     f = jax.jit(lambda a, b: group_reduce(a, b, reduce="mean", size=32))
@@ -499,7 +499,7 @@ def test_group_reduce_jit_and_edges(rng):
                                     np.bool_])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 def test_group_reduce_dense_matches_sort_native(vdtype, reduce, rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     n, G = 30_000, 1 << 9
     k = rng.integers(0, G, size=n, dtype=np.uint32)
     if vdtype == np.bool_:
@@ -531,7 +531,7 @@ def test_group_reduce_dense_matches_sort_native(vdtype, reduce, rng):
 def test_group_reduce_dense_f32(vdtype, reduce, rng):
     # FLOAT values ride the dense tier (round 5): fused count+bf16x2-sum
     # histogram, vs a float64 oracle within the documented bound
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     n, G = 30_000, 1 << 9
     k = rng.integers(0, G, size=n, dtype=np.uint32)
     v = (rng.standard_normal(n) * 10).astype(vdtype)
@@ -570,7 +570,7 @@ def test_group_reduce_dense_f32(vdtype, reduce, rng):
 
 def test_group_reduce_dense_mod32_wrap(rng):
     # integer sums are exact mod 2^32 — the 32-bit accumulation contract
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     n, G = 50_000, 64
     k = rng.integers(0, G, size=n, dtype=np.int32)
     v = rng.integers(1 << 28, (1 << 31) - 1, size=n, dtype=np.int32)
@@ -583,7 +583,7 @@ def test_group_reduce_dense_mod32_wrap(rng):
 
 
 def test_group_reduce_dense_promise_and_fallbacks(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 40, size=2_000, dtype=np.uint32)
     k[::200] = 77  # promise violations
     v = np.ones(2_000, np.int32)
@@ -613,7 +613,7 @@ def test_group_reduce_dense_promise_and_fallbacks(rng):
 
 
 def test_group_reduce_dense_jit_and_empty(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 16, size=4_096, dtype=np.uint8)
     v = rng.integers(0, 100, size=4_096, dtype=np.uint8)
     f = jax.jit(lambda a, b: group_reduce(a, b, reduce="mean", groups=16))
@@ -631,7 +631,7 @@ def test_group_reduce_dense_jit_and_empty(rng):
 def test_unique_counts_only_routes_through_api_sort(rng, monkeypatch):
     # the no-permutation path must ride api.sort's strategy dispatch
     # (counting/bitmap tiers), not the raw word sorter
-    import radix_sorting_tpu.api as api_mod
+    import radix_sorting.api as api_mod
     calls = []
     orig = api_mod.sort
     monkeypatch.setattr(api_mod, "sort",
@@ -678,7 +678,7 @@ def test_isin_duplicate_heavy_runs(rng):
 
 
 def test_group_reduce_mean_64bit_exact(rng):
-    from radix_sorting_tpu.extras import group_reduce
+    from radix_sorting.extras import group_reduce
     k = rng.integers(0, 4, size=64, dtype=np.uint32)
     base = np.int64(1) << 40
     v = base + rng.integers(0, 1000, size=64).astype(np.int64)
@@ -694,7 +694,7 @@ def test_group_reduce_mean_64bit_exact(rng):
 # --------------------------------------------- numpy-2.0 unique_* quartet
 
 def test_unique_quartet_vs_numpy(rng):
-    from radix_sorting_tpu.sets import (unique_all, unique_counts,
+    from radix_sorting.sets import (unique_all, unique_counts,
                                         unique_inverse, unique_values)
     x = rng.integers(0, 500, size=30_000, dtype=np.uint32)
     uq, idx, inv, cnt = np.unique(x, return_index=True, return_inverse=True,
@@ -721,7 +721,7 @@ def test_unique_quartet_vs_numpy(rng):
 
 
 def test_unique_quartet_jit_and_i64(rng):
-    from radix_sorting_tpu.sets import unique_all, unique_counts
+    from radix_sorting.sets import unique_all, unique_counts
     x = rng.integers(-(1 << 40), 1 << 40, size=4_000).astype(np.int64)
     x = np.repeat(x[:400], 10)
     rng.shuffle(x)

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import scipy.stats as scipy_stats
 
-from radix_sorting_tpu import SortConfig
-from radix_sorting_tpu.stats import (argpartition, digitize, histogram,
+from radix_sorting import SortConfig
+from radix_sorting.stats import (argpartition, digitize, histogram,
                                      histogram_bin_edges, median, partition,
                                      percentile, quantile, rankdata)
 
@@ -296,7 +296,7 @@ def test_partition_kth_out_of_range():
 # ---------------------------------------------------------------- mode
 
 def test_mode_vs_scipy(rng):
-    from radix_sorting_tpu.stats import mode
+    from radix_sorting.stats import mode
     x = rng.integers(0, 40, size=10_000, dtype=np.int32)
     mv, mc = mode(jnp.asarray(x))
     exp = scipy_stats.mode(x)
