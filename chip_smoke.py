@@ -7,7 +7,8 @@ and checks every result against an independent host oracle (numpy):
   reference's dataset size, `Makefile:79-82`), with the sort kernel each
   became in the optimized HLO (CUB's radix sort or XLA's own sort);
 * the counting tier (``value_mask=0xF0F00000``), u16 over the full domain,
-  numpy u64 keys without x64, f32 with NaN and +-inf, bf16 and f16 with NaN
+  numpy u64 keys without x64, masked u64 keys with live bits in both planes
+  (timed against the two-key sort of the raw planes), f32 with NaN and +-inf, bf16 and f16 with NaN
   payloads, int4/uint4, ``S16`` byte strings, ``sort_batched`` rows,
   ``group_reduce`` (i32 bit-exact; f32 within |err| <= count_g * 2^-23 *
   max|v| per group, since GPU atomics add in a run-dependent order),
@@ -113,12 +114,12 @@ class Phases:
 
 
 def _drive_surfaces(n: int) -> list:
-    """Every other major surface at ``n`` keys against numpy; returns the
-    names of the checks that failed."""
+    """The surfaces ``run_single`` has no phase for, at ``n`` keys against
+    numpy; returns the names of the checks that failed."""
     import jax.numpy as jnp
 
     import radix_sorting as rst
-    from radix_sorting.extras import merge_sorted, top_k
+    from radix_sorting.extras import merge_sorted
     from radix_sorting.parallel import (
         distributed_select,
         distributed_sort_balanced_u32,
@@ -137,23 +138,11 @@ def _drive_surfaces(n: int) -> list:
     x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
     xj = jnp.asarray(x)
 
-    out = np.asarray(rst.sort(xj))
-    check("keys-only sort", np.array_equal(out, np.sort(x)))
-
-    mask = 0xF0F00000
-    xm = (x & np.uint32(mask)).astype(np.uint32)
-    out = np.asarray(rst.sort(jnp.asarray(xm), value_mask=mask))
-    check("masked counting fast path", np.array_equal(out, np.sort(xm)))
-
     perm = np.asarray(rst.argsort(jnp.asarray(x % 1000)))
-    check("stable rank sort",
+    check("stable rank sort (heavy ties)",
           np.array_equal(perm, np.argsort(x % 1000, kind="stable")))
 
     v = rng.standard_normal(n).astype(np.float32)
-    sk, sv = rst.sort_pairs(jnp.asarray(x % 64), {"v": jnp.asarray(v)})
-    order = np.argsort(x % 64, kind="stable")
-    check("record sort (pytree payload)",
-          np.array_equal(np.asarray(sv["v"]), v[order]))
 
     # byte-string payload field (numpy S in -> numpy S out; packed u32
     # planes — verifies the pack/unpack lowering on the card)
@@ -165,36 +154,15 @@ def _drive_surfaces(n: int) -> list:
           np.array_equal(svb["name"], names[np.argsort(kb, kind="stable")]))
 
     x64 = rng.integers(0, 1 << 64, size=n // 4, dtype=np.uint64)
-    out = np.asarray(rst.sort(x64), dtype=np.uint64)
-    check("64-bit keys (no x64)", np.array_equal(out, np.sort(x64)))
 
-    rows = jnp.asarray(x[: (n // 4096) * 4096].reshape(-1, 4096))
-    out = np.asarray(rst.sort_batched(rows))
-    check("batched rows", np.array_equal(out, np.sort(np.asarray(rows), -1)))
-
-    xlow = (rng.integers(0, 256, size=n, dtype=np.uint32) << 9).astype(np.uint32)
+    # dynamic probe: unpromised u64 keys with 12 varying bits across both
+    # planes, measured on the host and sorted as one compacted operand
+    xlow = ((rng.integers(0, 64, size=n).astype(np.uint64) << np.uint64(40))
+            | (rng.integers(0, 64, size=n).astype(np.uint64) << np.uint64(9)))
     cfg = rst.SortConfig(dynamic_probe=True)
-    out = np.asarray(rst.sort(jnp.asarray(xlow), config=cfg))
-    check("dynamic probe (unpromised low entropy)",
+    out = np.asarray(rst.sort(xlow, config=cfg), dtype=np.uint64)
+    check("dynamic probe (unpromised low-entropy u64)",
           np.array_equal(out, np.sort(xlow)))
-
-    tv, ti = top_k(xj, 10)
-    check("top_k", np.array_equal(np.asarray(tv), np.sort(x)[::-1][:10]))
-
-    # device probe: narrow-range data at an offset, no promise
-    xnr = (x % np.uint32(5000)) + np.uint32(2_000_000_000)
-    out = np.asarray(rst.sort(jnp.asarray(xnr),
-                              config=rst.SortConfig(device_probe=True)))
-    check("device probe (one-word keys)",
-          np.array_equal(out, np.sort(xnr)))
-
-    # two-word device probe: clustered u64 (constant hi plane, narrow lo)
-    xc = (np.uint64(0xABCD_0000_4000_0000)
-          + rng.integers(0, 4000, size=n).astype(np.uint64))
-    out = np.asarray(rst.sort(xc, config=rst.SortConfig(device_probe=True)),
-                     dtype=np.uint64)
-    check("device probe u64 (clustered two-word keys)",
-          np.array_equal(out, np.sort(xc)))
 
     # masked-u64 pairs through plane compaction (2 sorter operands)
     cmask = (0xFF << 32) | 0x0000F000
@@ -345,14 +313,6 @@ def _drive_surfaces(n: int) -> list:
           and np.array_equal(np.asarray(tot)[: len(uq)].astype(np.int64),
                              want))
 
-    # DENSE group tier: scatter-add counts and sums, no sort at all
-    uk, tot, ng = group_reduce(jnp.asarray(gk), jnp.asarray(gv),
-                               reduce="sum", groups=1 << 10)
-    check("group_reduce dense tier (scatter-add)",
-          int(ng) == len(uq)
-          and np.array_equal(np.asarray(uk)[: len(uq)], uq)
-          and np.array_equal(np.asarray(tot)[: len(uq)].astype(np.int64),
-                             want))
     from radix_sorting.extras import value_counts
     vcv, vcc, vcn = value_counts(jnp.asarray(gk), groups=1 << 10)
     check("value_counts dense tier",
@@ -360,21 +320,6 @@ def _drive_surfaces(n: int) -> list:
           and np.array_equal(np.asarray(vcv)[: len(uq)], uq)
           and np.array_equal(np.asarray(vcc)[: len(uq)],
                              np.bincount(gk, minlength=1 << 10)[uq]))
-
-    # FLOAT dense tier vs a float64 oracle within |err| <= count*2^-23*max|v|
-    gvf = (rng.standard_normal(n) * 100).astype(np.float32)
-    uk, tot, ng = group_reduce(jnp.asarray(gk), jnp.asarray(gvf),
-                               reduce="sum", groups=1 << 10)
-    reff = np.zeros(1 << 10, np.float64)
-    np.add.at(reff, gk, gvf.astype(np.float64))
-    maxvf = np.zeros(1 << 10, np.float64)
-    np.maximum.at(maxvf, gk, np.abs(gvf).astype(np.float64))
-    cntf = np.bincount(gk, minlength=1 << 10)
-    errf = np.abs(np.asarray(tot)[: len(uq)].astype(np.float64) - reff[uq])
-    check("group_reduce dense tier f32",
-          int(ng) == len(uq)
-          and np.array_equal(np.asarray(uk)[: len(uq)], uq)
-          and bool(np.all(errf <= cntf[uq] * 2.0**-23 * maxvf[uq])))
 
     # order statistics / ranking: tie-aware ranks (boundary algebra +
     # inverse-permutation restore), exact quantiles off the dispatched
@@ -528,6 +473,41 @@ def run_single(n: int, trace_dir: str = TRACE_DIR) -> list:
             and np.array_equal(out, np.sort(h))
         return ok, ms, f"x64={jax.config.jax_enable_x64}"
 
+    def u64_mask_two_plane():
+        # 16 live bits, 8 in each plane: the public route compacts them into
+        # ONE u32 operand (the library sort); timed against the two-key sort
+        # of the raw (hi, lo) planes (XLA's own kernel) that compaction avoids
+        mask = (0x0F0F << 32) | 0xF0F0_0000
+        h = ((xh.astype(np.uint64) << np.uint64(32)) | x2h.astype(np.uint64)) \
+            & np.uint64(mask)
+        want = np.sort(h)
+        ok = np.array_equal(np.asarray(rst.sort(h, value_mask=mask),
+                                       dtype=np.uint64), want)
+        from radix_sorting.ops import kdf
+
+        def two_key(k):
+            return kdf.decode(lax.sort(kdf.encode(k), num_keys=2,
+                                       is_stable=False), k.dtype)
+
+        routes = {
+            "public": jax.jit(lambda k: rst.sort(k, value_mask=mask)),
+            "public_noguard": jax.jit(lambda k: rst.sort(
+                k, value_mask=mask,
+                config=rst.SortConfig(detect_presorted=False))),
+            "two_key_raw_planes": jax.jit(two_key),
+        }
+        details, ms = [], {}
+        with jax.enable_x64(True):
+            k = jnp.asarray(h)
+            for name, fn in routes.items():
+                out, ms[name] = _warm(fn, k)
+                good = np.array_equal(np.asarray(out), want)
+                ok &= good
+                details.append(f"{name} {ms[name]:.3f}ms "
+                               f"{'ok' if good else 'WRONG'} "
+                               f"[{_sort_kernels(fn, k)}]")
+        return ok, ms["public"], "; ".join(details)
+
     def f32_special():
         u = x2h.copy()
         u[:8] = [0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001,
@@ -637,7 +617,15 @@ def run_single(n: int, trace_dir: str = TRACE_DIR) -> list:
         xn = (x % np.uint32(5000)) + np.uint32(2_000_000_000)
         cfg = rst.SortConfig(device_probe=True)
         out, ms = _warm(lambda a: rst.sort(a, config=cfg), xn)
-        return np.array_equal(np.asarray(out), np.sort(np.asarray(xn))), ms, ""
+        ok = np.array_equal(np.asarray(out), np.sort(np.asarray(xn)))
+        # two-word keys are what the in-graph probe dispatches on: clustered
+        # u64 (constant hi plane, narrow lo) takes its one-operand branch
+        xc = (np.uint64(0xABCD_0000_4000_0000)
+              + (xh % np.uint32(4000)).astype(np.uint64))
+        out = np.asarray(rst.sort(xc, config=cfg), dtype=np.uint64)
+        good = np.array_equal(out, np.sort(xc))
+        return ok and good, ms, (f"u32 narrow range timed; clustered u64 "
+                                 f"{'ok' if good else 'WRONG'}")
 
     m = min(n, N_SMALL)
 
@@ -691,6 +679,7 @@ def run_single(n: int, trace_dir: str = TRACE_DIR) -> list:
     P.run("counting_mask_F0F00000", masked)
     P.run("u16_full_domain", u16)
     P.run("u64_numpy_no_x64", u64_numpy)
+    P.run("u64_mask_two_plane", u64_mask_two_plane)
     P.run("f32_nan_inf", f32_special)
     P.run("bf16_nan_payloads", half(jnp.bfloat16, "bf16"))
     P.run("f16_nan_payloads", half(jnp.float16, "f16"))
@@ -704,6 +693,7 @@ def run_single(n: int, trace_dir: str = TRACE_DIR) -> list:
     P.run("unique_all_flags", unique_flags)
     P.run("searchsorted", searchsorted)
     P.run("top_k", top_k)
+
     def surfaces():
         failed = _drive_surfaces(N_SURFACES)
         return not failed, None, (f"n={N_SURFACES}; failed: {failed}"

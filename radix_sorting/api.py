@@ -32,7 +32,7 @@ import numpy as np
 from jax import lax
 
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
-from .ops import counting_engine, hw_engine, kdf, lsd_engine, probes
+from .ops import hw_engine, kdf, lsd_engine, probes
 
 __all__ = [
     "sort",
@@ -260,7 +260,7 @@ def _compaction_masks(words, value_mask, dtype,
     the library radix sort. Single-word keys gain nothing (already 1
     operand).
     The budget here is the 32-bit plane width, NOT ``counting_max_bits``
-    (no histogram is involved).
+    (which bounds only an explicit COUNTING request).
     """
     if len(words) != 2 or value_mask is None or kdf.is_bytes_dtype(dtype):
         return None
@@ -271,7 +271,8 @@ def _compaction_masks(words, value_mask, dtype,
 
 
 def _static_live_mask(words, value_mask, dtype, cfg: SortConfig) -> Optional[Tuple[int, ...]]:
-    """Static per-plane live-bit masks for the COUNTING path, or None.
+    """Static per-plane live-bit masks (plane compaction, the COUNTING
+    contract), or None.
 
     Static knowledge comes from (a) the dtype's width for narrow integer keys
     — the `counting_sort_8.c` domain — or (b) an explicit ``value_mask``
@@ -333,8 +334,8 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG, value_mask: Optional[int] = 
     ``value_mask`` is a static *promise* that every key satisfies
     ``key == key & value_mask`` (the CLI's column-skip knob,
     `radix_experiment.cpp:188-198` — the reference likewise masks the data
-    before sorting). It enables the COUNTING fast path when few bits are
-    live. A violated promise silently truncates keys to the mask, exactly as
+    before sorting). On 64-bit keys with <= 32 live bits it lets the two
+    planes sort as ONE compacted operand. A violated promise silently truncates keys to the mask, exactly as
     feeding unmasked data to the reference's masked experiment would; mask
     the data first (``x & mask``) if unsure, or pass ``validate_mask=True``
     to pay one OR-reduce (plus a host sync) and get a ValueError instead.
@@ -352,60 +353,48 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG, value_mask: Optional[int] = 
         _validate_value_mask(x, dtype, value_mask)
 
     strategy = cfg.strategy
+    if strategy == Strategy.COUNTING:
+        # the `counting_sort_8.c` contract: keys-only over a small live
+        # domain the caller promises statically; it runs the HW_SORT route
+        if _static_live_mask(words, value_mask, dtype, cfg) is None:
+            raise ValueError(
+                "COUNTING strategy needs a narrow key dtype or a value_mask with "
+                f"<= {cfg.counting_max_bits} live bits"
+            )
+        strategy = Strategy.HW_SORT
     # Computed once, consulted twice: the device-probe guard below and the
-    # HW_SORT operand selection must see the SAME answer — the guard's
-    # correctness argument is "whenever the probe is skipped, compaction
-    # definitely engages".
+    # operand selection must see the SAME answer — the guard's correctness
+    # argument is "whenever the probe is skipped, compaction definitely
+    # engages".
     cmasks = _compaction_masks(words, value_mask, dtype, cfg)
     if strategy == Strategy.AUTO:
-        mask = _static_live_mask(words, value_mask, dtype, cfg)
-        if mask is None and cfg.dynamic_probe and len(words) <= 2 \
+        if cmasks is None and cfg.dynamic_probe and len(words) == 2 \
                 and not any(isinstance(w, jax.core.Tracer) for w in words):
             # Runtime column-skip probe (the reference's histogram probe,
             # `radix_sort.hpp:64-70`, in live-bit form): measure which bits
             # actually vary. Always correct — dead bits are constant by
             # MEASUREMENT, no promise involved — at the cost of one reduce
-            # plus a host sync. The derived-word masks are positional
-            # regardless of dtype because they describe the encoded planes
-            # themselves, not the raw values.
+            # plus a host sync. The masks describe the encoded (possibly
+            # complemented) planes themselves, so they are positional for
+            # every dtype. A one-word key has nothing to gain: it is one
+            # sorter operand already.
             measured = tuple(int(m) for m in
                              jax.device_get(probes.live_bit_mask(words)))
-            if 0 < sum(bin(m).count("1") for m in measured) \
-                    <= min(cfg.counting_max_bits, 32):
-                mask = measured
-        # descending complement flips dead bits too; counting path compacts the
-        # *complemented* live bits, so pass the complemented mask
-        if mask is not None:
-            strategy = Strategy.COUNTING
-        elif cfg.device_probe and cmasks is None and len(words) == 2:
-            # (The compaction guard: a 64-bit value_mask with 18-32 live
+            if 0 < sum(bin(m).count("1") for m in measured) <= 32:
+                cmasks = measured
+        if cmasks is None and cfg.device_probe and len(words) == 2:
+            # (The compaction guard: a 64-bit value_mask with <= 32 live
             # bits is a *static* promise of the one-operand sorter route,
             # which must not be pre-empted by the runtime probe; the probe
             # only helps unpromised data.)
             # In-graph probe, NO host sync: a constant hi plane (any key
             # population inside one 2^32 span) sorts the lo plane as ONE
-            # operand (see counting_engine.sort_words2_range_probe). A
-            # one-word key has nothing to probe for: the library sort is
-            # already the fastest route at every live domain.
-            sw = counting_engine.sort_words2_range_probe(
+            # operand (see hw_engine.sort_words2_range_probe). A one-word
+            # key has nothing to probe for.
+            sw = hw_engine.sort_words2_range_probe(
                 words[0], words[1], guard=cfg.detect_presorted)
             return _decode(sw, dtype, cfg.descending)
-        else:
-            strategy = Strategy.HW_SORT
-    elif strategy == Strategy.COUNTING:
-        mask = _static_live_mask(words, value_mask, dtype, cfg)
-        if mask is None:
-            raise ValueError(
-                "COUNTING strategy needs a narrow key dtype or a value_mask with "
-                f"<= {cfg.counting_max_bits} live bits"
-            )
-
-    if strategy == Strategy.COUNTING:
-        # The descending complement is a positional bit-flip, so the live-bit
-        # *positions* are unchanged; the counting engine sorts the (possibly
-        # complemented) words ascending and decode() restores order and values.
-        sorted_words = counting_engine.sort_words_counting(words, mask)
-        return _decode(sorted_words, dtype, cfg.descending)
+        strategy = Strategy.HW_SORT
 
     if strategy == Strategy.LSD:
         # plane compaction pays here too (fewer words -> fewer digit passes);
@@ -421,8 +410,9 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG, value_mask: Optional[int] = 
         return _decode(sw, dtype, cfg.descending)
 
     # HW_SORT; keys-only, so the unstable fast path is exact (see hw_engine).
-    # Masked 64-bit keys past the counting budget still benefit from plane
-    # compaction: one merged sort operand instead of two planes.
+    # Masked 64-bit keys with <= 32 live bits sort as ONE compacted operand,
+    # the one-key sort XLA hands to the library radix sort, instead of the
+    # two-key comparison sort of the raw planes.
     operands = words if cmasks is None \
         else (probes.compact_word_planes(words, cmasks),)
     if cfg.detect_presorted:
@@ -460,9 +450,8 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=jnp.uint32,
         # raise like sort() does for an inapplicable COUNTING request —
         # silently running the sorter would measure the wrong engine
         raise ValueError(
-            "Strategy.COUNTING is keys-only (regeneration rebuilds values "
-            "from the histogram and cannot carry a permutation); use AUTO, "
-            "LSD, or HW_SORT for argsort")
+            "Strategy.COUNTING is keys-only (the `counting_sort_8.c` "
+            "contract); use AUTO, LSD, or HW_SORT for argsort")
     if cfg.strategy == Strategy.LSD:
         _, (perm,) = lsd_engine.sort_words_lsd(
             words, (iota,), radix_bits=cfg.radix_bits, chunk=cfg.lsd_chunk,
@@ -522,9 +511,8 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
 
     if cfg.strategy == Strategy.COUNTING:
         raise ValueError(
-            "Strategy.COUNTING is keys-only (regeneration rebuilds values "
-            "from the histogram and cannot carry a payload); use AUTO, LSD, "
-            "or HW_SORT for sort_pairs")
+            "Strategy.COUNTING is keys-only (the `counting_sort_8.c` "
+            "contract); use AUTO, LSD, or HW_SORT for sort_pairs")
     cmasks = _compaction_masks(words, value_mask, dtype, cfg)
     operands = words if cmasks is None \
         else (probes.compact_word_planes(words, cmasks),)
@@ -546,8 +534,10 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
 def counting_sort(keys, values=None, *, config: SortConfig = DEFAULT_CONFIG):
     """Counting sort for narrow integer keys (<= 16 bits).
 
-    Keys-only: regeneration path (`counting_sort_8.c` semantics — O(n + B),
-    no data movement). With payload: the stable scatter form
+    Keys-only: the `counting_sort_8.c` contract, realized as one library
+    sort of the narrow derived key (on a GPU no histogram + regeneration
+    formulation beat it at any domain up to 2^17 bins; PERF.md). With
+    payload: the stable scatter form
     (`counting_sort_8s.c`, record form `counting_sort_rec_sk.c`), realized as
     a single stable sort by the narrow derived key.
     """
@@ -555,11 +545,7 @@ def counting_sort(keys, values=None, *, config: SortConfig = DEFAULT_CONFIG):
     if bits > 16:
         raise TypeError("counting_sort requires a key dtype of <= 16 bits")
     if values is None:
-        cfg = config.replace(
-            strategy=Strategy.AUTO,
-            counting_max_bits=max(config.counting_max_bits, bits),
-        )
-        return sort(keys, config=cfg)
+        return sort(keys, config=config.replace(strategy=Strategy.AUTO))
     # the payload form IS the counting-with-payload realization (stable sort
     # by the narrow key), so an explicit COUNTING request maps to AUTO here
     # rather than tripping sort_pairs' keys-only COUNTING rejection

@@ -22,10 +22,13 @@ class Strategy:
               column-skip behavior (`radix_sort.hpp:47-70`).
     HW_SORT   derived-key sort with ``lax.sort`` (on a GPU, XLA hands a
               one-key sort to CUB's radix sort) — the general workhorse.
-    COUNTING  keys-only sorts over small live domains (<= 2**counting_max_bits
-              distinct live bit-patterns), the `counting_sort_8.c` contract;
-              realized with ``lax.sort`` on the raw planes, which beat every
-              histogram formulation measured (see :mod:`.ops.counting_engine`).
+    COUNTING  the `counting_sort_8.c` contract: keys-only, over a live domain
+              of <= counting_max_bits bits that the dtype or a value_mask
+              promises statically (raises otherwise). It runs the HW_SORT
+              route: on an H100 at 40M keys the library radix sort beat
+              every histogram + regeneration formulation at every domain
+              from 2^4 to 2^17 bins (PERF.md), and masked 64-bit keys sort
+              as one compacted operand.
     LSD       the faithful chunked LSD radix engine (per-digit histogram →
               exclusive scan → stable scatter with ping-pong), structured like
               `radix_sort.hpp:31-93`; the blueprint for the distributed
@@ -51,8 +54,9 @@ class SortConfig:
         digits studied (`README.md:781-811`); both are supported.
       descending: sort order. Implemented via derived-key complement
         (`README.md:566-574`), preserving stability.
-      counting_max_bits: ceiling on live-domain width for the COUNTING path
-        (default 17).
+      counting_max_bits: ceiling on the live-domain width that an explicit
+        ``Strategy.COUNTING`` request accepts (default 17). AUTO does not
+        read it.
       lsd_chunk: elements per chunk in the LSD engine's tile decomposition
         (the distributed-memory generalization of `cnt[k]++`,
         `counting_sort_8s.c:23-34`).
@@ -60,13 +64,13 @@ class SortConfig:
         (`radix_sort.hpp:48-62`, `README.md:652-669`).
       skip_trivial_digits: elide passes whose digit is constant across all keys
         (column skipping, `radix_sort.hpp:64-70`, diagram `data/colskip.dot`).
-      dynamic_probe: in AUTO strategy, measure the live-bit mask of the actual
-        data (one OR-reduce + one AND-reduce + a host sync) and take the
-        COUNTING path when few bits vary — the runtime form of the
-        reference's probe-based column skipping, valid with NO value_mask
-        promise (dead bits are constant by measurement). Off by default:
-        the host sync breaks async dispatch pipelines; turn on for
-        low-entropy workloads called from Python.
+      dynamic_probe: in AUTO strategy, measure the live-bit mask of two-word
+        (64-bit) keys (one OR-reduce + one AND-reduce + a host sync) and,
+        when <= 32 bits vary, sort the planes as ONE compacted operand —
+        the runtime form of the reference's probe-based column skipping,
+        valid with NO value_mask promise (dead bits are constant by
+        measurement). One-word keys are unaffected. Off by default: the
+        host sync breaks async dispatch pipelines.
       device_probe: in AUTO strategy (keys-only), two-word (64-bit) keys
         dispatch IN-GRAPH on their hi plane: one fused min/max reduce feeds
         a `lax.cond` that, when every key shares one 2^32 span (clustered

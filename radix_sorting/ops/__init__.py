@@ -2,7 +2,6 @@
 
 from . import (  # noqa: F401
     bitmap,
-    counting_engine,
     histogram,
     hw_engine,
     kdf,

@@ -18,6 +18,7 @@ reference returning "whichever buffer holds the result",
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import jax
@@ -26,7 +27,8 @@ from jax import lax
 
 from . import probes
 
-__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard"]
+__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard",
+           "sort_words2_range_probe"]
 
 
 def sort_words(
@@ -73,6 +75,16 @@ def argsort_words(words: Sequence[jax.Array],
     return tuple(out[:-1]), out[-1]
 
 
+@functools.partial(jax.jit, static_argnames=("num_words", "stable"))
+def _presort_guarded(ops, num_words: int, stable: bool):
+    def slow(ops):
+        sw, sp = sort_words(ops[:num_words], ops[num_words:], stable=stable)
+        return sw + sp
+
+    ok = probes.is_sorted_words(ops[:num_words])
+    return lax.cond(ok, lambda o: o, slow, ops)
+
+
 def sort_words_presort_guard(
     words: Sequence[jax.Array],
     payloads: Sequence[jax.Array] = (),
@@ -81,19 +93,44 @@ def sort_words_presort_guard(
     """sort_words with the reference's presorted early-exit (`radix_sort.hpp:60-62`).
 
     The probe is one cheap bandwidth-bound pass; `lax.cond` skips the sorter
-    entirely when the input is already ordered.
+    entirely when the input is already ordered. The guard is one cached
+    ``jit``: an eager ``lax.cond`` built from fresh closures would re-trace
+    and re-compile its branches on every call.
     """
     words = tuple(words)
     payloads = tuple(payloads)
-    ok = probes.is_sorted_words(words)
-
-    def fast(ops):
-        return ops
-
-    def slow(ops):
-        ws, ps = ops[: len(words)], ops[len(words):]
-        sw, sp = sort_words(ws, ps, stable=stable)
-        return sw + sp
-
-    out = lax.cond(ok, fast, slow, words + payloads)
+    out = _presort_guarded(words + payloads, num_words=len(words),
+                           stable=stable)
     return tuple(out[: len(words)]), tuple(out[len(words):])
+
+
+@functools.partial(jax.jit, static_argnames=("guard",))
+def sort_words2_range_probe(hi: jax.Array, lo: jax.Array,
+                            guard: bool = False):
+    """Keys-only sort of a two-word (64-bit) derived key with in-graph dispatch.
+
+    The reference's always-on probe (`radix_sort.hpp:64-70`) applied to the
+    multipass decomposition (`radix_sort_u64_multipass.c:117-118`): one fused
+    min/max reduce over the HIGH plane decides — on device, no host sync —
+    whether the hi word is constant across the array. If so the order is
+    determined by the low plane alone, and the program sorts ONE u32
+    operand, which XLA hands to the library radix sort; otherwise the
+    two-key sort runs (XLA's own comparison sort on a GPU). A 64-bit key
+    population inside one 2^32 span — clustered timestamps, offset-based
+    ids — takes the one-operand branch. The cost on full-entropy data is
+    one extra bandwidth-bound reduce of the hi plane.
+
+    ``guard``: use the presorted-guarded sorter (composes with
+    ``detect_presorted``). Returns the sorted ``(hi, lo)`` planes.
+    """
+    def sort(words):
+        if guard:
+            return sort_words_presort_guard(words, stable=False)[0]
+        return sort_words(words, stable=False)[0]
+
+    def hi_const():
+        # a constant plane is its own sorted self; order rides on lo alone
+        return (hi, sort((lo,))[0])
+
+    return lax.cond(jnp.min(hi) == jnp.max(hi), hi_const,
+                    lambda: sort((hi, lo)))

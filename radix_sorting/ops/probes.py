@@ -18,8 +18,8 @@ needed):
 * column skip: a digit is trivial iff it is constant, iff its bits don't vary;
   the **live-bit mask** ``OR(x) ^ AND(x)`` (one OR-reduce + one AND-reduce)
   identifies every varying bit. This subsumes the reference's sample-key probe:
-  any digit whose bits are all dead is skippable, and the mask also feeds the
-  COUNTING fast path (sorting only the live bits).
+  any digit whose bits are all dead is skippable, and the mask also feeds
+  plane compaction (64-bit keys with <= 32 live bits sort as one operand).
 
 Both probes return device scalars, consumed by `lax.cond`/pass masks so the
 whole sort stays inside one jitted program.
@@ -79,7 +79,8 @@ def live_bit_mask(words: Sequence[jax.Array]) -> Tuple[jax.Array, ...]:
     """Per-word mask of bits that vary across the input (OR-reduce ^ AND-reduce).
 
     A zero mask means all keys are equal (every pass trivially skippable); the
-    popcount bounds the COUNTING domain. The dense-reduction replacement for
+    popcount decides whether the planes compact into one operand. The
+    dense-reduction replacement for
     the sample-key histogram probe (`radix_sort.hpp:64-70`).
     """
     out = []

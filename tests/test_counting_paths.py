@@ -2,10 +2,9 @@
 
 Histograms are scatter-adds (``ops.histogram.digit_histogram``); masked keys
 compact/expand through ``ops.probes`` (PEXT/PDEP, which the 64-bit
-plane-compaction route relies on); the COUNTING strategy
-(``counting_engine.sort_words_counting``) sorts keys-only under a static
-live-bit promise. Sizes are chosen so that n is not a multiple of any
-power-of-two block.
+plane-compaction route relies on); the COUNTING strategy sorts keys-only
+under a static live-bit promise, through the public ``rst.sort``. Sizes are
+chosen so that n is not a multiple of any power-of-two block.
 """
 
 import numpy as np
@@ -13,13 +12,29 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from radix_sorting.ops import counting_engine as ce
-from radix_sorting.ops import histogram, probes
+import radix_sorting as rst
+from radix_sorting.ops import histogram, hw_engine, probes
+
+_COUNTING = rst.SortConfig(strategy=rst.Strategy.COUNTING, counting_max_bits=32)
+
+
+def _counting(planes, masks, descending=False):
+    """The COUNTING strategy on one u32 plane, or on a (hi, lo) pair of
+    planes as numpy u64 keys; returns the sorted planes."""
+    cfg = _COUNTING.replace(descending=descending)
+    if len(planes) == 1:
+        (x,), (m,) = planes, masks
+        return (np.asarray(rst.sort(jnp.asarray(x), value_mask=m, config=cfg)),)
+    hi, lo = planes
+    keys = hi.astype(np.uint64) << np.uint64(32) | lo.astype(np.uint64)
+    out = np.asarray(rst.sort(keys, value_mask=(masks[0] << 32) | masks[1],
+                              config=cfg), dtype=np.uint64)
+    return (out >> np.uint64(32)).astype(np.uint32), out.astype(np.uint32)
 
 
 def _dense_sort(x, bins):
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (bins - 1,))
-    return np.asarray(out)
+    (out,) = _counting((x,), (bins - 1,))
+    return out
 
 
 def _host_pext(x: np.ndarray, mask: int) -> np.ndarray:
@@ -112,14 +127,13 @@ def test_counting_end_to_end(rng):
 
 
 def test_counting_two_plane_u64(rng):
-    # live bits in BOTH planes of a 64-bit key, dead bits set in each
+    # live bits in BOTH planes of a 64-bit key, constant bits set in each
     mask_hi, mask_lo = 0x000000F0, 0xF0000000
     hi = (rng.integers(0, 1 << 32, size=120_000, dtype=np.uint32)
           & np.uint32(mask_hi)) | np.uint32(0x01000000)
     lo = (rng.integers(0, 1 << 32, size=120_000, dtype=np.uint32)
           & np.uint32(mask_lo)) | np.uint32(0x00000007)
-    shi, slo = ce.sort_words_counting((jnp.asarray(hi), jnp.asarray(lo)),
-                                      (mask_hi, mask_lo))
+    shi, slo = _counting((hi, lo), (mask_hi | 0x01000000, mask_lo | 7))
     full = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
     got = (np.asarray(shi).astype(np.uint64) << np.uint64(32)) \
         | np.asarray(slo).astype(np.uint64)
@@ -162,8 +176,8 @@ def test_counting_masked_12bit_dead_bits(rng):
     dead = np.uint32(0x01010041)
     x = ((rng.integers(0, 1 << 32, size=n, dtype=np.uint32) & np.uint32(mask))
          | dead)
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (mask,))
-    assert np.array_equal(np.asarray(out), np.sort(x))
+    (out,) = _counting((x,), (mask | int(dead),))
+    assert np.array_equal(out, np.sort(x))
 
 
 def test_counting_two_plane_13bit(rng):
@@ -173,8 +187,7 @@ def test_counting_two_plane_13bit(rng):
           & np.uint32(mask_hi)) | np.uint32(0x10000000)
     lo = (rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
           & np.uint32(mask_lo)) | np.uint32(0x00000100)
-    shi, slo = ce.sort_words_counting((jnp.asarray(hi), jnp.asarray(lo)),
-                                      (mask_hi, mask_lo))
+    shi, slo = _counting((hi, lo), (mask_hi | 0x10000000, mask_lo | 0x100))
     comp = hi.astype(np.uint64) << np.uint64(32) | lo.astype(np.uint64)
     order = np.argsort(comp, kind="stable")
     assert np.array_equal(np.asarray(shi), hi[order])
@@ -182,19 +195,22 @@ def test_counting_two_plane_13bit(rng):
 
 
 def test_counting_rejects_wide_domain():
+    # 33 live bits: past the budget of one u32 operand
     with pytest.raises(ValueError, match="32"):
-        ce.sort_words_counting((jnp.zeros((8,), jnp.uint32),) * 2,
-                               (0xFFFFFFFF, 0x1))
+        _counting((np.zeros(8, np.uint32),) * 2, (0xFFFFFFFF, 0x1))
 
 
 def test_counting_graph_is_one_sort():
-    # the strategy is one library sort of the raw planes: no histogram
-    # (scatter) and no PEXT compaction in the program
+    # the strategy is one library sort of the derived word: no histogram
+    # (scatter) and, for a one-word key, no PEXT compaction in the program
     x = jnp.zeros((4096,), jnp.uint32)
-    jaxpr = jax.make_jaxpr(lambda w: ce.sort_words_counting(
-        (w,), (0xFF << 3,)))(x)
-    prims = [e.primitive.name for e in jaxpr.jaxpr.eqns]
-    assert prims == ["sort"], prims
+    cfg = _COUNTING.replace(detect_presorted=False)
+    jaxpr = jax.make_jaxpr(lambda w: rst.sort(w, value_mask=0xFF << 3,
+                                              config=cfg))(x)
+    sorts = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "sort"]
+    assert len(sorts) == 1 and sorts[0].params["num_keys"] == 1
+    assert all(e.primitive.name in ("sort", "bitcast_convert_type")
+               for e in jaxpr.jaxpr.eqns), jaxpr
 
 
 def test_counting_trailing_empty_bins(rng):
@@ -215,15 +231,14 @@ def test_sort_words_counting_masked_desc(rng):
     mask = 0x1FFF << 7  # 13 contiguous live bits at position 7
     n = 700_000
     x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32) & np.uint32(mask)
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (mask,))
-    assert np.array_equal(np.asarray(out), np.sort(x))
-    (outd,) = ce.sort_words_counting((jnp.asarray(x),), (mask,),
-                                     descending=True)
-    assert np.array_equal(np.asarray(outd), np.sort(x)[::-1])
+    (out,) = _counting((x,), (mask,))
+    assert np.array_equal(out, np.sort(x))
+    (outd,) = _counting((x,), (mask,), descending=True)
+    assert np.array_equal(outd, np.sort(x)[::-1])
 
 
 # ---------------------------------------------------------------------------
-# counting-path edge cases across the whole bin range, through the engine
+# counting-path edge cases across the whole bin range, through the public API
 
 
 @pytest.mark.parametrize("nbits", [1, 2, 4, 8, 11, 16, 17])
@@ -231,17 +246,16 @@ def test_counting_bins_sweep(rng, nbits):
     # 2 .. 2^17 bins; n = 100_003 is not a multiple of any block
     mask = ((1 << nbits) - 1) << 5
     x = rng.integers(0, 1 << 32, size=100_003, dtype=np.uint32) & np.uint32(mask)
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (mask,))
-    assert np.array_equal(np.asarray(out), np.sort(x))
+    (out,) = _counting((x,), (mask,))
+    assert np.array_equal(out, np.sort(x))
 
 
 @pytest.mark.parametrize("nbits", [2, 9, 16])
 def test_counting_bins_sweep_descending(rng, nbits):
     mask = ((1 << nbits) - 1) << 11
     x = rng.integers(0, 1 << 32, size=50_001, dtype=np.uint32) & np.uint32(mask)
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (mask,),
-                                    descending=True)
-    assert np.array_equal(np.asarray(out), np.sort(x)[::-1])
+    (out,) = _counting((x,), (mask,), descending=True)
+    assert np.array_equal(out, np.sort(x)[::-1])
 
 
 @pytest.mark.parametrize("masks", [(0x1, 0x80000000), (0xF000, 0x0F0F),
@@ -251,8 +265,7 @@ def test_counting_two_plane_masks(rng, masks):
     n = 30_011
     hi = rng.integers(0, 1 << 32, size=n, dtype=np.uint32) & np.uint32(mh)
     lo = rng.integers(0, 1 << 32, size=n, dtype=np.uint32) & np.uint32(ml)
-    shi, slo = ce.sort_words_counting((jnp.asarray(hi), jnp.asarray(lo)),
-                                      (mh, ml))
+    shi, slo = _counting((hi, lo), (mh, ml))
     comp = np.sort(hi.astype(np.uint64) << np.uint64(32) | lo.astype(np.uint64))
     assert np.array_equal(np.asarray(shi), (comp >> np.uint64(32)).astype(np.uint32))
     assert np.array_equal(np.asarray(slo), comp.astype(np.uint32))
@@ -260,12 +273,12 @@ def test_counting_two_plane_masks(rng, masks):
 
 def test_counting_all_equal_and_two_values():
     x = np.full(10_007, 0xF0F00000, np.uint32)
-    (out,) = ce.sort_words_counting((jnp.asarray(x),), (0xF0F00000,))
-    assert np.array_equal(np.asarray(out), x)
+    (out,) = _counting((x,), (0xF0F00000,))
+    assert np.array_equal(out, x)
     y = np.where(np.arange(10_007) % 3 == 0, 0xF0000000, 0x00F00000)
     y = y.astype(np.uint32)
-    (out,) = ce.sort_words_counting((jnp.asarray(y),), (0xF0F00000,))
-    assert np.array_equal(np.asarray(out), np.sort(y))
+    (out,) = _counting((y,), (0xF0F00000,))
+    assert np.array_equal(out, np.sort(y))
 
 
 @pytest.mark.parametrize("guard", [False, True])
@@ -276,8 +289,8 @@ def test_two_word_probe_both_branches(rng, guard):
     lo = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
     for hi in (np.full(n, 7, np.uint32),
                rng.integers(0, 3, size=n, dtype=np.uint32)):
-        shi, slo = ce.sort_words2_range_probe(jnp.asarray(hi),
-                                              jnp.asarray(lo), guard=guard)
+        shi, slo = hw_engine.sort_words2_range_probe(
+            jnp.asarray(hi), jnp.asarray(lo), guard=guard)
         comp = np.sort(hi.astype(np.uint64) << np.uint64(32)
                        | lo.astype(np.uint64))
         assert np.array_equal(np.asarray(shi),

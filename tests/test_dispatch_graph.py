@@ -1,21 +1,23 @@
 """The production dispatch graph: counting tier, range probe, dense tiers.
 
-One graph runs on every backend — the COUNTING strategy (one library sort of
-the raw planes, ``ops.counting_engine``), the in-graph ``lax.cond`` hi-plane
-probe (``SortConfig.device_probe``) with both branches, and the dense
+One graph runs on every backend — narrow and masked keys (one library sort
+of ONE operand: 64-bit keys with <= 32 live bits are compacted into one
+u32 word first), the in-graph ``lax.cond`` hi-plane probe
+(``SortConfig.device_probe``) with both branches, and the dense
 group-by / weighted-histogram scatter-adds — so the tested path is the
 production path. The reference's analog is its always-on self-verification
 (`radix_experiment.cpp:208-212`).
 """
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
 
 def test_counting_route_is_one_sort_for_u8_u16():
-    # u8 and u16 keys take the COUNTING strategy under AUTO: no histogram
-    # (scatter) in the program, one sort of the derived word
+    # u8 and u16 keys under AUTO: no histogram (scatter) in the program,
+    # one sort of the derived word
     import radix_sorting as rst
     for dt in (jnp.uint8, jnp.uint16):
         jaxpr = str(jax.make_jaxpr(rst.sort)(jnp.zeros((1000,), dt)))
@@ -52,13 +54,14 @@ def test_masked_u32_12bit_dead_bits(rng):
 
 def test_counting_sparse_skewed(rng):
     # one element in each of ~1500 of 2048 values, the rest piled into one
-    from radix_sorting.ops.counting_engine import sort_word_counting
+    import radix_sorting as rst
     bins, n = 1 << 11, 400_009
     singles = np.arange(1500, dtype=np.uint32)
     x = np.concatenate([singles,
                         np.full(n - singles.size, 2000, np.uint32)])
     x = np.random.default_rng(7).permutation(x)
-    out = np.asarray(sort_word_counting(jnp.asarray(x), bins - 1))
+    cfg = rst.SortConfig(strategy=rst.Strategy.COUNTING)
+    out = np.asarray(rst.sort(jnp.asarray(x), value_mask=bins - 1, config=cfg))
     assert np.array_equal(out, np.sort(x))
 
 
@@ -71,6 +74,39 @@ def test_masked_u64_two_plane(rng):
     x = r & np.uint64(full_mask)
     out = np.asarray(rst.sort(x, value_mask=int(full_mask)))
     assert np.array_equal(out, np.sort(x))
+
+
+@pytest.mark.parametrize("route", ["auto_mask", "counting_mask", "dynamic_probe",
+                                   "auto_mask_desc"])
+@pytest.mark.parametrize("detect_presorted", [False, True])
+def test_masked_u64_sorts_one_operand(rng, monkeypatch, route,
+                                      detect_presorted):
+    # 64-bit keys with few live bits across both planes must reach the
+    # library sort as ONE compacted operand, never as the two-key sort of
+    # the raw planes (XLA's comparison kernel on a GPU)
+    import radix_sorting as rst
+    from radix_sorting.ops import hw_engine
+    seen = []
+    for name in ("sort_words", "sort_words_presort_guard"):
+        real = getattr(hw_engine, name)
+        monkeypatch.setattr(
+            hw_engine, name,
+            lambda ws, *a, _real=real, **k: seen.append(len(tuple(ws)))
+            or _real(ws, *a, **k))
+    mask = (0x0F0F << 32) | 0xF0F0_0000            # 8 + 8 = 16 live bits
+    x = rng.integers(0, 1 << 64, size=50_021, dtype=np.uint64) & np.uint64(mask)
+    cfg = rst.SortConfig(detect_presorted=detect_presorted)
+    kw = {"value_mask": mask}
+    if route == "counting_mask":
+        cfg = cfg.replace(strategy=rst.Strategy.COUNTING)
+    elif route == "dynamic_probe":
+        cfg, kw = cfg.replace(dynamic_probe=True), {}
+    elif route == "auto_mask_desc":
+        cfg = cfg.replace(descending=True)
+    out = np.asarray(rst.sort(x, config=cfg, **kw), dtype=np.uint64)
+    want = np.sort(x)[::-1] if cfg.descending else np.sort(x)
+    assert np.array_equal(out, want)
+    assert seen and all(k == 1 for k in seen), seen
 
 
 def test_u16_full_domain(rng):
@@ -110,7 +146,7 @@ def test_device_probe_builds_cond(monkeypatch):
     # two-word keys: a cond between the one-operand and two-operand sorts;
     # one-word keys: no probe at all
     import radix_sorting as rst
-    from radix_sorting.ops import counting_engine as ce
+    from radix_sorting.ops import hw_engine as ce
     jaxpr = str(jax.make_jaxpr(ce.sort_words2_range_probe)(
         jnp.zeros((1000,), jnp.uint32), jnp.zeros((1000,), jnp.uint32)))
     assert "cond[" in jaxpr and "num_keys=1" in jaxpr and "num_keys=2" in jaxpr
@@ -163,8 +199,7 @@ def test_device_probe_narrow_signed_and_float(rng):
 
 def test_device_probe_u64_hi_const_narrow_lo(rng):
     # 64-bit keys inside one 2^32 span with a narrow lo range: the hi-plane
-    # constancy probe drops to the single-word probe, which routes on to the
-    # counting tier — all in-graph
+    # constancy probe sorts the lo plane alone — all in-graph
     import radix_sorting as rst
     cfg = rst.SortConfig(device_probe=True)
     base = np.uint64(0x1234_5678_9000_0000)
@@ -187,13 +222,13 @@ def test_device_probe_u64_hi_const_wide_lo(rng):
 
 
 def test_device_probe_defers_to_static_compaction(rng, monkeypatch):
-    # A 64-bit value_mask with 18-32 live bits is a STATIC promise of the
+    # A 64-bit value_mask with <= 32 live bits is a STATIC promise of the
     # one-operand compacted sorter route; device_probe must
     # not pre-empt it with the runtime range probe. Regression for the
     # round-3 review finding: poison the probe entry points and assert the
     # masked sort still succeeds (i.e. took the compaction route).
     import radix_sorting as rst
-    from radix_sorting.ops import counting_engine as ce
+    from radix_sorting.ops import hw_engine as ce
 
     def boom(*a, **k):
         raise AssertionError("range probe must not pre-empt static compaction")
@@ -220,7 +255,7 @@ def test_device_probe_u64_varying_hi_takes_full_sorter(rng):
 
 def test_device_probe_f64_band(rng):
     # f64 values in a tight positive band: mangled hi plane is constant,
-    # lo plane narrow -> counting route end to end
+    # lo plane narrow -> the one-operand branch end to end
     import radix_sorting as rst
     cfg = rst.SortConfig(device_probe=True)
     x = 1.0 + rng.integers(0, 1500, size=500_009).astype(np.float64) * 2.0**-52

@@ -7,7 +7,7 @@ import pytest
 import jax.numpy as jnp
 
 import radix_sorting as rst
-from radix_sorting.ops import counting_engine, histogram, hw_engine, lsd_engine, probes, scan
+from radix_sorting.ops import histogram, hw_engine, lsd_engine, probes, scan
 from radix_sorting.ops.bitmap import bitmap_unique_sort
 
 
@@ -76,16 +76,19 @@ def test_scatter_bases(rng):
 
 # ---------------------------------------------------------------- counting
 
+_COUNTING = rst.SortConfig(strategy=rst.Strategy.COUNTING)
+
+
 def test_counting_sort_compact(rng):
     c = jnp.asarray(rng.integers(0, 256, 70_000, dtype=np.uint32))
-    out = counting_engine.sort_word_counting(c, 0xFF)
+    out = rst.sort(c, value_mask=0xFF, config=_COUNTING)
     assert np.array_equal(np.asarray(out), np.sort(np.asarray(c)))
 
 
 def test_sort_word_counting_masked(rng):
     mask = 0x0F0F0000
     w = jnp.asarray(rng.integers(0, 1 << 32, 50_000, dtype=np.uint32) & mask | np.uint32(0x13))
-    out = counting_engine.sort_word_counting(w, mask)
+    out = rst.sort(w, value_mask=mask | 0x13, config=_COUNTING)
     assert np.array_equal(np.asarray(out), np.sort(np.asarray(w)))
 
 
